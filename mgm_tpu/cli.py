@@ -25,7 +25,7 @@ from .stereo import compute_disparity
 
 USAGE = "usage:\n\tmgm [-options] u v out [cost [backflow]]"
 
-HELP = """Compute stereo disparities by the MGM algorithm (TPU-native engine).
+HELP = """Compute stereo disparities by the MGM algorithm (JAX engine, CPU or GPU).
 
 Usage: mgm [options] in_u in_v out_disp
    or: mgm [options] in_u in_v out_disp out_cost

@@ -1,4 +1,4 @@
-"""Typed configuration for the MGM-TPU stereo / MRF engine.
+"""Typed configuration for the mgm_tpu stereo / MRF engine.
 
 One flat config object mirrors every knob of the reference `mgm` binary
 (CLI flags at mgm.cc:302-318 and env vars at mgm.cc:186-196 of

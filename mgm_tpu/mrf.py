@@ -18,8 +18,10 @@ from .solver import mgm_solve
 
 def solve_mrf(unary: np.ndarray, ndir: int = 8, p1: float = 8.0,
               p2: float = 32.0, mgm: int = 2, vtype: int = 0,
-              weights: np.ndarray | None = None) -> np.ndarray:
-    """unary: (H, W, L) cost volume; weights: (H, W, 8) or None.
+              weights: np.ndarray | None = None,
+              backend: str = "auto") -> np.ndarray:
+    """unary: (H, W, L) cost volume; weights: (H, W, 8) or None;
+    backend: the recursion's route (backend.recursion_route).
     Returns the (H, W) float32 labelling (labels 0..L-1)."""
     unary = np.asarray(unary, np.float32)
     H, W, L = unary.shape
@@ -36,5 +38,5 @@ def solve_mrf(unary: np.ndarray, ndir: int = 8, p1: float = 8.0,
                            p1=float(p1), p2=float(p2), ndir=int(ndir),
                            mgm=int(mgm), use_fh=bool(vtype),
                            use_weights=use_weights, per_pixel=False,
-                           fix_overcount=True)
+                           fix_overcount=True, backend=backend)
     return np.asarray(disp[0])

@@ -1,4 +1,4 @@
-"""TPU-native MGM directional aggregation.
+"""MGM directional aggregation.
 
 Design
 ------
@@ -37,6 +37,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..backend import recursion_route
 from .common import INF, fmin3, shift_fill
 
 
@@ -187,15 +188,13 @@ def _dir2off(spec: PassSpec):
     return DIAG_DIR2OFF if spec.diag else AXIS_DIR2OFF
 
 
-def _pass_groups(ndir: int, mgm: int, homogeneous: bool = False,
-                 pids=None):
+def _pass_groups(ndir: int, mgm: int, homogeneous: bool = False):
     """Group passes runnable in one batched scan: same canonical shape
     (row_major) and, when mgm < 4 or `homogeneous`, same class so the
     dir->offset order is static.  Knight passes always group alone
-    (their offset set and border differ).  `pids` restricts grouping to
-    an explicit pass subset (the fused path's leftovers)."""
+    (their offset set and border differ)."""
     groups = {}
-    for p in (range(ndir) if pids is None else pids):
+    for p in range(ndir):
         spec = PASS_TABLE[p]
         if spec.knight:
             key = (spec.row_major, "knight")
@@ -387,102 +386,13 @@ def _run_group(pids, cc, w8, lo, hi, *, p1, p2, mgm, use_fh, use_weights,
     return out
 
 
-def _run_group_pallas(pids, cc, w8, lo, hi, *, p1, p2, mgm, use_fh,
-                      use_weights, fh_restrict, interpret):
-    """One homogeneous pass group through the Pallas wavefront kernel
-    (ops/pallas_wavefront.py), chunked along the stacked pass x problem
-    axis so the working set fits VMEM.  The skewed volumes keep their
-    natural (M, R, T, L) layout; only the small weight/window side
-    inputs are transposed."""
-    from . import pallas_wavefront as pw
-
-    specs = [PASS_TABLE[p] for p in pids]
-    B = len(specs)
-    N, H, W, L = cc.shape
-    rm = specs[0].row_major
-    knight = specs[0].knight
-    R, C = (H, W) if rm else (W, H)
-    d2o = _dir2off(specs[0])[:mgm]
-    offs = sorted(set(d2o))
-    # slope-1 wavefronts whenever NE (same-front on slope 1) is inactive
-    slope = 2 if 3 in offs else 1
-    barrier = jax.lax.optimization_barrier
-
-    cc_c = jnp.stack([to_canonical(cc, s, 1, 2) for s in specs])
-    cc_c = cc_c.reshape(B * N, R, C, L)
-
-    w_c = lo_c = hi_c = None
-    if use_weights:
-        wmaps = []
-        for s in specs:
-            # channel per offset rank: offset o is dir k with d2o[k] == o
-            chs = [s.wch[d2o.index(o)] for o in offs]
-            wm = jnp.stack([to_canonical(w8[..., c], s, 1, 2) for c in chs],
-                           axis=1)
-            wmaps.append(wm)
-        # (n_off, B*N, R, C): offset-rank outer, pass x problem inner
-        w_c = jnp.stack(wmaps).reshape(B * N, len(offs), R, C)
-        w_c = jnp.swapaxes(w_c, 0, 1)
-    if fh_restrict:
-        lo_c = jnp.stack([to_canonical(lo, s, 1, 2) for s in specs])
-        lo_c = lo_c.reshape(B * N, R, C)
-        hi_c = jnp.stack([to_canonical(hi, s, 1, 2) for s in specs])
-        hi_c = hi_c.reshape(B * N, R, C)
-
-    # chunk size: VMEM working set plus an HBM cap of ~2 GiB per skewed
-    # buffer (tile-padded trailing dims) so big problems schedule
-    # chunk by chunk
-    rolled = pw.use_rolled(use_fh)
-    G, m_vmem = pw.pick_block(R, L, heavy=use_fh and not rolled)
-    if interpret:
-        # the interpreter pays per-front graph size, not per-step DMA;
-        # G=2 still exercises both the in-block and cross-block paths
-        G = min(G, 2)
-    T = C + slope * (R - 1)
-    t_pad = -(-T // G) * G
-    lanes = -(-L // 128) * 128
-    hbm_cap = max(1, (4 << 30) // (R * t_pad * lanes * 4))
-    m_max = min(m_vmem, hbm_cap)
-    parts = []
-    for s0 in range(0, B * N, m_max):
-        s1 = min(s0 + m_max, B * N)
-        M = s1 - s0
-        cc_sk = pw.skew_p(cc_c[s0:s1], INF, G, slope, interpret)
-        w_sk = lo_sk = hi_sk = None
-        if use_weights:
-            wm = w_c[:, s0:s1].reshape(len(offs) * M, R, C, 1)
-            w_sk = pw.skew_p(wm, 1.0, G, slope, interpret)
-        if fh_restrict:
-            lo_sk = pw.skew_p(lo_c[s0:s1, ..., None], 0, G, slope, interpret)
-            hi_sk = pw.skew_p(hi_c[s0:s1, ..., None], -1, G, slope,
-                              interpret)
-        lr_sk = pw.wavefront_scan(
-            cc_sk, w_sk, lo_sk, hi_sk,
-            C=C, G=G, p1=p1, p2=p2, mgm=mgm, dir2off=d2o, slope=slope,
-            knight=knight, use_fh=use_fh, use_weights=use_weights,
-            fh_restrict=fh_restrict, rolled=rolled, interpret=interpret)
-        parts.append(pw.unskew_p(lr_sk, C, R, slope, interpret))
-    lr = (jnp.concatenate(parts) if len(parts) > 1 else parts[0])
-    lr = lr.reshape(B, N, R, C, L)
-    out = from_canonical(lr[0], specs[0], 1, 2)
-    for b in range(1, B):
-        out = out + from_canonical(lr[b], specs[b], 1, 2)
-    return out
-
-
-def _use_pallas() -> bool:
-    platform = jax.devices()[0].platform
-    return platform not in ("cpu",)
-
-
 @partial(jax.jit, static_argnames=("p1", "p2", "ndir", "mgm", "use_fh",
                                    "use_weights", "fh_restrict", "backend",
-                                   "pids", "hpad"))
+                                   "hpad"))
 def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
               ndir: int, mgm: int, use_fh: bool = False,
               use_weights: bool = False, fh_restrict: bool = False,
-              backend: str = "auto", pids: tuple | None = None,
-              hpad: int = 0):
+              backend: str = "auto", hpad: int = 0):
     """Sum over the first `ndir` directional passes of the aggregated
     volumes Lr (before the S-window clip / overcount fix, which are
     applied by the solver).
@@ -492,15 +402,13 @@ def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
         mgm_weights.h:69) when use_weights.
     lo/hi: (N, H, W) int32 label windows, needed when fh_restrict
         (truncated-linear potential with per-pixel windows).
-    backend: "pallas" (TPU kernel), "xla" (lax.scan), "interpret"
-        (Pallas interpreter, for CPU tests), or "auto".
+    backend: "auto", "xla" (lax.scan) or "cuda" (ops/wavefront.cu);
+        backend.recursion_route resolves it.
     hpad: trailing fake image rows appended so a device mesh divides H
-        (xla backend only); real border pixels behave exactly as at the
+        (xla route only); real border pixels behave exactly as at the
         true image edge and never read pad cells.
     """
-    if backend == "auto":
-        backend = "pallas" if _use_pallas() else "xla"
-    assert hpad == 0 or backend == "xla", "hpad needs the xla backend"
+    backend = recursion_route(backend, ndir=ndir, use_fh=use_fh, hpad=hpad)
     # update_cost2 divides each of the 2 messages by 2 before summing
     # (mgm_core.cc:83-84); all other paths sum then divide.
     div_each = (mgm == 2) and (not use_weights) and (not use_fh)
@@ -508,18 +416,18 @@ def aggregate(cc, w8=None, lo=None, hi=None, *, p1: float, p2: float,
         # the MGM==2 unweighted FH path uses the boundary-fixed full-axis
         # min-conv instead of the window-restricted one (mgm_core.cc:208)
         fh_restrict = not ((mgm == 2) and (not use_weights))
+    groups = _pass_groups(ndir, mgm)
+    if backend == "cuda":
+        from . import wavefront_cuda
+
+        return wavefront_cuda.aggregate(groups, cc, w8, p1=p1, p2=p2,
+                                        mgm=mgm, use_weights=use_weights,
+                                        div_each=div_each)
     out = None
-    for gp in _pass_groups(ndir, mgm, homogeneous=backend != "xla",
-                           pids=pids):
-        if backend == "xla":
-            part = _run_group(gp, cc, w8, lo, hi, p1=p1, p2=p2, mgm=mgm,
-                              use_fh=use_fh, use_weights=use_weights,
-                              fh_restrict=fh_restrict, div_each=div_each,
-                              hpad=hpad)
-        else:
-            part = _run_group_pallas(
-                gp, cc, w8, lo, hi, p1=p1, p2=p2, mgm=mgm, use_fh=use_fh,
-                use_weights=use_weights, fh_restrict=fh_restrict,
-                interpret=backend == "interpret")
+    for gp in groups:
+        part = _run_group(gp, cc, w8, lo, hi, p1=p1, p2=p2, mgm=mgm,
+                          use_fh=use_fh, use_weights=use_weights,
+                          fh_restrict=fh_restrict, div_each=div_each,
+                          hpad=hpad)
         out = part if out is None else out + part
     return out

@@ -1,4 +1,4 @@
-"""Shared array helpers for the MGM-TPU compute path."""
+"""Shared array helpers for the compute path."""
 from __future__ import annotations
 
 import jax.numpy as jnp

@@ -30,9 +30,9 @@ def _pad_cols(a, gmin: int, L: int):
     """Edge-pad columns so every disparity d = gmin..gmin+L-1 becomes a
     static slice a_pad[:, x + d - gmin].  Edge padding equals the
     index clamp the gather-based formulation used; out-of-image labels
-    are masked to trunc_dist by the builder anyway.  Static slices
-    instead of a (H, W, L, C) gather: TPU gathers are pathologically
-    slow, slices fuse into the elementwise cost math."""
+    are masked to trunc_dist by build_cost_volume anyway.  Static slices
+    instead of a (H, W, L, C) gather: slices fuse into the elementwise
+    cost math."""
     left = max(0, -gmin)
     right = max(0, gmin + L - 1)
     return jnp.pad(a, [(0, 0), (left, right), (0, 0)], mode="edge"), left
@@ -74,45 +74,12 @@ def _box(a, hw):
     return out
 
 
-def _pointwise_pallas(u, v, gmin: int, L: int, distance: str, interpret):
-    """Pallas cost kernel path (ad/sd/census/bt); returns (H, W, L).
-    Falls back to the XLA path when even a 128-row chunk of the
-    image-resident working set exceeds the VMEM budget."""
-    from .pallas_cost import pointwise_volume, _vmem_bytes, VMEM_LIMIT
-
-    H, W, C = u.shape
-    ck = 3 * C if distance in ("btad", "btsd") else C
-    wp = W + max(0, -gmin) + max(0, gmin + L - 1)
-    if _vmem_bytes(W, wp, ck, min(H, 128)) > VMEM_LIMIT:
-        return None
-    if distance in ("btad", "btsd"):
-        umin, umax = _bt_aux(u)
-        vmin, vmax = _bt_aux(v)
-        u = jnp.concatenate([u, umin, umax], -1)
-        v = jnp.concatenate([v, vmin, vmax], -1)
-    v_pad, left = _pad_cols(v, gmin, L)
-    u_t = jnp.transpose(u, (1, 2, 0))            # (W, Ck, H)
-    v_t = jnp.transpose(v_pad, (1, 2, 0))        # (Wp, Ck, H)
-    vol = pointwise_volume(u_t, v_t, mode=distance, C=C, W=W, L=L,
-                           left=left, gmin=gmin, interpret=interpret)
-    return jnp.transpose(vol, (2, 1, 0))         # (H, W, L)
-
-
-def pointwise_costs(u, v, gmin: int, L: int, distance: str, ncc_win: int,
-                    backend: str = "auto"):
+def pointwise_costs(u, v, gmin: int, L: int, distance: str, ncc_win: int):
     """Raw per-(pixel,label) matching costs, before truncation/masking.
 
     u, v: (H, W, C) preprocessed images (uint32 census codes for
     'census').  Label l matches column x + gmin + l.  Returns (H, W, L).
     """
-    if backend == "auto":
-        backend = ("pallas" if jax.devices()[0].platform != "cpu"
-                   else "xla")
-    if backend != "xla" and distance != "ncc":
-        out = _pointwise_pallas(u, v, gmin, L, distance,
-                                interpret=backend == "interpret")
-        if out is not None:
-            return out
     if distance == "census":
         inv_nw = jnp.float32(1.0 / u.shape[2])
 
@@ -181,9 +148,9 @@ def _ncc_costs(u, v, gmin, L, win):
     # Label-blocked, not per-label: the box filters run ONCE per block
     # of B labels on an (H, W, B, C) stack (the shift ops vectorise over
     # the label axis), so the sequential depth is L/B and the unrolled
-    # op count stays ~L/B * const (an L-fold unroll of the filters sends
-    # the TPU toolchain's compile time through the roof; a lax.map over
-    # single labels serialises 151 tiny steps).
+    # op count stays ~L/B * const (an L-fold unroll of the filters
+    # makes compile time explode; a lax.map over single labels
+    # serialises 151 tiny steps).
     B = 8
     Lp = -(-L // B) * B
     blocks = []
@@ -208,10 +175,9 @@ def _ncc_costs(u, v, gmin, L, win):
 
 
 @partial(jax.jit, static_argnames=("gmin", "distance", "L", "trunc_dist",
-                                   "ncc_win", "backend"))
+                                   "ncc_win"))
 def build_cost_volume(u, v, lo, hi, gmin: int, *, distance: str, L: int,
-                      trunc_dist: float, ncc_win: int = 3,
-                      backend: str = "auto"):
+                      trunc_dist: float, ncc_win: int = 3):
     """Dense (H, W, L) cost volume.
 
     u, v: preprocessed images (H, W, C); lo/hi: (H, W) int32 label
@@ -223,7 +189,7 @@ def build_cost_volume(u, v, lo, hi, gmin: int, *, distance: str, L: int,
     qx = jnp.arange(W, dtype=jnp.int32)[:, None] + d[None, :]   # (W, L)
     valid_q = (qx >= 0) & (qx < W)
 
-    e = pointwise_costs(u, v, gmin, L, distance, ncc_win, backend)
+    e = pointwise_costs(u, v, gmin, L, distance, ncc_win)
     e = jnp.where(valid_q[None], e, tmax)
     e = jnp.minimum(e, tmax)
 

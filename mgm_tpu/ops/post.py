@@ -26,9 +26,8 @@ def median_filter(img, *, radius: int):
     finite = ~jnp.isnan(stack)
     n = jnp.sum(finite, axis=-1)
     svals = jnp.sort(jnp.where(finite, stack, INF), axis=-1)
-    # one-hot select instead of take_along_axis: the TPU gather
-    # lowering ran at ~10 ns/element (a 10 ms postprocess sink on
-    # fountain23); exactly one term is non-zero so the sum is
+    # one-hot select instead of take_along_axis, so the select fuses
+    # into the reduction; exactly one term is non-zero so the sum is
     # bit-identical (NaNs were already replaced by +inf above)
     kidx = jax.lax.broadcasted_iota(jnp.int32, stack.shape,
                                     stack.ndim - 1)
@@ -47,9 +46,7 @@ def leftright_test(d_left, d_right, tau):
     The d_right lookup at the reprojected column is written as a
     one-hot masked sum-reduction rather than take_along_axis: XLA
     fuses the (H, W, W) compare+select into the reduction loop with
-    nothing materialised, where the TPU gather lowering ran at
-    ~10 ns/element (3.4 ms per side on fountain23 — the whole
-    postprocess budget).  Exactly one term of the sum is non-zero, so
+    nothing materialised.  Exactly one term of the sum is non-zero, so
     the f32 result is bit-identical to the gather; NaNs travel as a
     sentinel (disparities are bounded by the image width, so 1e30 is
     unreachable) and are restored by exact compare."""

@@ -1,12 +1,12 @@
-"""Multi-host (multi-controller) execution over DCN.
+"""Multi-host (multi-controller) execution over the network.
 
 The reference is a single serial process (SURVEY.md 2.9); this module
-is the jax.distributed half of the TPU-native scaling design: each
-host runs the same program, contributes its local devices to one
-global 1-D row mesh, and the row-sharded stereo pipeline
+is the jax.distributed half of the scaling design: each host runs the
+same program, contributes its local devices to one global 1-D row
+mesh, and the row-sharded stereo pipeline
 (stereo.compute_disparity(mesh=...)) executes with XLA collectives —
-boundary-row collective-permutes ride ICI within a host/slice and DCN
-across hosts.
+boundary-row collective-permutes ride the device links within a host
+and the network across hosts.
 
 Hermetic test: tests/test_distributed.py launches 2 CPU processes on
 one machine (coordinator on localhost) and asserts the 2-process
@@ -31,8 +31,8 @@ def initialize(coordinator: str | None = None,
                local_device_ids=None):
     """jax.distributed.initialize with env-var fallbacks
     (MGM_TPU_COORDINATOR / MGM_TPU_NUM_PROCS / MGM_TPU_PROC_ID).
-    On TPU pods with the standard runtime, all arguments are optional
-    and auto-detected."""
+    On clusters whose runtime jax detects, all arguments are optional;
+    elsewhere pass all three."""
     import jax
 
     coordinator = coordinator or os.environ.get("MGM_TPU_COORDINATOR")

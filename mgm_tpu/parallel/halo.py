@@ -2,10 +2,10 @@
 
 The reference has no distributed story (its parallelism is dead OpenMP
 pragmas, Makefile:1-4 of gfacciol/mgm); SURVEY.md section 2.9 specifies
-the TPU-native equivalent: partition the image into row tiles across
+the accelerator equivalent: partition the image into row tiles across
 the mesh and run each directional pass as a block-sequential pipeline
 where a device consumes one boundary row of directional state per
-wavefront step from its upper neighbour over ICI.
+wavefront step from its upper neighbour.
 
 This module implements that design literally with `shard_map`: the
 skewed volume is sharded on canonical rows; every scan step each device
@@ -17,7 +17,7 @@ reads of its first row.  Exactness: tiled == single-device bitwise
 (SURVEY.md section 5, "halo-exact tiled recursion").
 
 This is the explicit-collective counterpart of parallel/shard.py's
-auto-SPMD path, and the template for the multi-host (DCN) pipeline.
+auto-SPMD path, and the template for the multi-host pipeline.
 """
 from __future__ import annotations
 

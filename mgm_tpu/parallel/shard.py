@@ -2,7 +2,7 @@
 
 The reference has no distributed story at all (its parallelism is dead
 OpenMP pragmas, Makefile:1-4 of gfacciol/mgm); this module is the
-TPU-native scaling design that replaces it:
+scaling design that replaces it:
 
   - The (N, H, W, L) problem volumes are sharded over a 1-D mesh along
     the image row axis H (axis name "y"): cost-volume build, S
@@ -12,7 +12,7 @@ TPU-native scaling design that replaces it:
     a scan step is a shift-by-one-row of the previous fronts
     (aggregate.py `rsh`), which the XLA SPMD partitioner turns into a
     collective-permute of a single boundary row (an (BN, 1, L) tile)
-    per step over ICI — exactly the halo exchange a hand-written
+    per step between devices — exactly the halo exchange a hand-written
     pipeline would do.
   - Passes whose canonical scan is column-major have their parallel
     axis along W; their canonical volumes are resharded once per pass
@@ -25,7 +25,7 @@ output equality is asserted in tests/test_sharding.py.
 `parallel.halo.halo_aggregate` is the explicit-collective counterpart:
 the same recursion written as a shard_map pipeline that ppermutes one
 boundary row of directional state per wavefront step — the pattern to
-scale onto real multi-chip ICI (and multi-host DCN) where the
+scale onto real multi-device links (and multi-host networks) where the
 auto-partitioner's choices need to be pinned down.
 """
 from __future__ import annotations
@@ -59,7 +59,8 @@ def row_sharding(mesh: Mesh, ndim: int, row_axis: int = 1) -> NamedSharding:
                                    "use_weights", "per_pixel",
                                    "fix_overcount"))
 def _solve(cc, w8, lo, hi, s_lo, s_hi, gmin, **kw):
-    return mgm_solve(cc, w8, lo, hi, s_lo, s_hi, gmin, **kw)
+    # the XLA scan: the CUDA recursion kernel is a single-device call
+    return mgm_solve(cc, w8, lo, hi, s_lo, s_hi, gmin, backend="xla", **kw)
 
 
 def sharded_solve(mesh: Mesh, cc, w8, lo, hi, s_lo, s_hi, gmin, *,

@@ -41,8 +41,7 @@ def mgm_solve(cc, w8, lo, hi, s_lo, s_hi, gmin, *, p1: float, p2: float,
     """
     N, H, W, L = cc.shape
     # the barriers keep the cost-volume producer and the WTA consumer
-    # from fusing into the wavefront scan (an XLA/TPU fusion-emitter
-    # assertion trips on the combined strided-window pattern)
+    # out of the recursion's program: each stage fuses on its own
     cc = jax.lax.optimization_barrier(cc)
     lsum = aggregate(cc, w8, lo, hi, p1=p1, p2=p2, ndir=ndir, mgm=mgm,
                      use_fh=use_fh, use_weights=use_weights,

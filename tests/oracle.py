@@ -1,7 +1,7 @@
 """Slow numpy oracle implementing the exact reference semantics.
 
 This is an *independent executable specification* of gfacciol/mgm used as
-the ground truth for unit tests of the TPU implementation on small inputs.
+the ground truth for unit tests of the JAX implementation on small inputs.
 Semantics were derived from reading the reference:
   - pass table / scan canonicalisation    mgm_core.cc:463-484,505-541
   - SGM update kernels                    mgm_core.cc:66-144

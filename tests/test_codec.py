@@ -4,20 +4,32 @@ The codec's claim is strong — bit-identical pipeline outputs from a
 2-byte wire form — so it is tested at three levels: the comparison-
 preserving property itself, grouped-encode behaviour on data with
 more distinct values than uint16 levels, and end-to-end pipeline
-equality on the real satellite pair (BASELINE cfg3's data)."""
+equality on crops of the seeded satellite-class pair (BASELINE cfg3's
+geometry and value range, mgm_tpu.synth)."""
+import functools
+
 import numpy as np
 import pytest
 
+from mgm_tpu import synth
 from mgm_tpu.models.presets import get_preset
 from mgm_tpu.ops import census_codec
 from mgm_tpu.stereo import compute_disparity
 
 
+@functools.cache
+def _pairs():
+    return synth.satellite_pair(seed=0)[:2], synth.fountain_pair(seed=0)[:2]
+
+
 def _satellite_crop(h=96, w=104):
-    from mgm_tpu.io import read_image
-    u = read_image("/root/reference/data/rectified_ref.tif")[:h, :w]
-    v = read_image("/root/reference/data/rectified_sec.tif")[:h, :w]
-    return u, v
+    u, v = _pairs()[0]
+    return u[:h, :w], v[:h, :w]
+
+
+def _fountain_crop(h, w):
+    u, v = _pairs()[1]
+    return u[:h, :w], v[:h, :w]
 
 
 def test_eligibility_gates():
@@ -149,14 +161,12 @@ def test_pack_spec_gates():
 
 def test_output_codec_bit_identical(monkeypatch):
     """End-to-end equality of the packed-integer output wire form
-    against the raw float32 fetch on a fountain23 crop (uint8 images,
-    AD, mgm=2: disparities ship as int8, costs as int16 = 4*cost)."""
-    from mgm_tpu.io import read_image
+    against the raw float32 fetch on a fountain-class crop (uint8
+    images, AD, mgm=2: disparities ship as int8, costs as int16 =
+    4*cost)."""
     from mgm_tpu.stereo import _pack_spec
 
-    u = read_image("/root/reference/data/fountain23-imL.png")[:56, :64]
-    v = read_image("/root/reference/data/fountain23-imR.png")[:56, :64]
-    u, v = u.astype(np.uint8), v.astype(np.uint8)
+    u, v = _fountain_crop(56, 64)
     for mgm, want in ((1, ("int8", True)), (2, ("int8", False))):
         cfg = get_preset("fast_ad", dmin=-12, dmax=4, mgm=mgm)
         assert _pack_spec(cfg, 3, np.uint8, False) == want
@@ -173,18 +183,13 @@ def test_output_codec_bit_identical(monkeypatch):
 
 def test_output_codec_batch_bit_identical(monkeypatch):
     """Same equality through compute_disparity_batch (the serving /
-    scene-tile path packs in _postprocess_batch)."""
-    from mgm_tpu.io import read_image
+    scene-tile entry)."""
     from mgm_tpu.stereo import compute_disparity_batch
 
-    u = read_image("/root/reference/data/fountain23-imL.png")[:48, :56]
-    v = read_image("/root/reference/data/fountain23-imR.png")[:48, :56]
-    us = np.stack([u, v]).astype(np.uint8)   # two distinct "pairs"
-    vs = np.stack([v, u]).astype(np.uint8)
+    u, v = _fountain_crop(48, 56)
+    us = np.stack([u, v])   # two distinct "pairs"
+    vs = np.stack([v, u])
     cfg = get_preset("fast_ad", dmin=-8, dmax=4)
-    # opt the CPU test into the fused batch path (Pallas interpreter)
-    # so _postprocess_batch's packing actually runs
-    monkeypatch.setenv("MGM_TPU_FUSED", "interpret")
     monkeypatch.setenv("MGM_TPU_PACKOUT", "0")
     raw = compute_disparity_batch(us, vs, cfg)
     monkeypatch.setenv("MGM_TPU_PACKOUT", "1")
@@ -192,23 +197,3 @@ def test_output_codec_batch_bit_identical(monkeypatch):
     for k in raw:
         assert packed[k].dtype == np.float32, k
         np.testing.assert_array_equal(raw[k], packed[k], err_msg=k)
-
-
-def test_batch_chunked_streaming_matches(monkeypatch):
-    """The VMEM-chunked batch path (K > max_k) with its streamed
-    per-chunk fetches must equal the unchunked batch run exactly."""
-    from mgm_tpu.io import read_image
-    from mgm_tpu.stereo import compute_disparity_batch
-
-    u = read_image("/root/reference/data/fountain23-imL.png")[:40, :48]
-    v = read_image("/root/reference/data/fountain23-imR.png")[:40, :48]
-    us = np.stack([u, v, u]).astype(np.uint8)
-    vs = np.stack([v, u, v]).astype(np.uint8)
-    cfg = get_preset("fast_ad", dmin=-6, dmax=3)
-    monkeypatch.setenv("MGM_TPU_FUSED", "interpret")
-    whole = compute_disparity_batch(us, vs, cfg)
-    monkeypatch.setenv("MGM_TPU_BATCH_K", "2")  # force 2 chunks + pad
-    chunked = compute_disparity_batch(us, vs, cfg)
-    for k in whole:
-        assert chunked[k].dtype == np.float32, k
-        np.testing.assert_array_equal(whole[k], chunked[k], err_msg=k)

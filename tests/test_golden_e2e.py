@@ -136,12 +136,12 @@ def test_golden_satellite(tmp_path):
 
 @pytest.mark.skipif(os.environ.get("MGM_TPU_FULL_GOLDEN") != "1",
                     reason="full-image golden is slow; set "
-                           "MGM_TPU_FULL_GOLDEN=1 (run on the TPU chip)")
+                           "MGM_TPU_FULL_GOLDEN=1 (run it on a GPU)")
 def test_golden_full_image(tmp_path):
     """BASELINE cfg1 on the FULL 700x500 fountain23 pair: disparities
     must be equal on every mutually-finite pixel, the NaN mask may
     differ only on LR-borderline ties (measured: 1 pixel, a right-side
-    WTA tie at identical cost).  Run manually on TPU:
+    WTA tie at identical cost).  Run manually on a GPU:
         MGM_TPU_FULL_GOLDEN=1 pytest tests/test_golden_e2e.py -k full -p no:cacheprovider
     (on CPU the XLA path takes several minutes but passes too)."""
     u = read_image(f"{REF_DATA}/fountain23-imL.png")

@@ -106,7 +106,6 @@ def test_tiled_batch_codec_stream_exact(rng, monkeypatch):
     """The streamed batch path with census-exact uint16 slab uploads
     (per-slab codecs) mosaics bitwise-identically to the raw-float32
     stream AND to the sequential tiling."""
-    monkeypatch.setenv("MGM_TPU_FUSED", "interpret")
     cfg = MGMConfig(dmin=-6, dmax=2, ndir=4, mgm=2, distance="census",
                     census_ncc_win=5, test_lr=True)
     u, v = _pair(rng, H=32, W=48)
@@ -124,11 +123,10 @@ def test_tiled_batch_codec_stream_exact(rng, monkeypatch):
         np.testing.assert_array_equal(seq[k], coded[k], err_msg=k)
 
 
-def test_tiled_batch_matches_sequential(rng, monkeypatch):
-    """batch>1 groups same-shape tile crops into one launch set; the
+def test_tiled_batch_matches_sequential(rng):
+    """batch>1 groups same-shape tile crops into one batched call; the
     mosaic must equal the sequential tiling exactly (and pad a short
     trailing group without corrupting it)."""
-    monkeypatch.setenv("MGM_TPU_FUSED", "interpret")
     u, v = _pair(rng)
     a = tiled_disparity(u, v, CFG, tile=16, margin=4)
     b = tiled_disparity(u, v, CFG, tile=16, margin=4, batch=3)

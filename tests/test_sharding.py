@@ -5,8 +5,6 @@ race detection story (SURVEY.md section 5): the same solve executed over
 a 1-, 2-, 4- and 8-device row-sharded mesh must produce bitwise-equal
 disparities and costs.
 """
-import os
-
 import numpy as np
 import pytest
 
@@ -140,76 +138,6 @@ def test_halo_aggregate_weighted_fh(rng):
                                atol=1e-3, rtol=1e-6)
 
 
-def test_sharded_fused_pipeline(rng, monkeypatch):
-    """compute_disparity(mesh=...) with the fused kernels
-    (parallel/fused_shard.py: staggered block pipeline + ppermuted
-    boundary-row tracks) must be BITWISE-equal to the single-device
-    fused path, across mesh sizes, weights/census/FH, per-pixel
-    windows and ragged row counts."""
-    from mgm_tpu.config import MGMConfig
-    from mgm_tpu.stereo import compute_disparity
-
-    monkeypatch.setenv("MGM_TPU_FUSED", "interpret")
-    H, W = 21, 30
-    u = rng.uniform(0, 50, (H, W, 1)).astype(np.float32)
-    v = (np.roll(u, 3, axis=1)
-         + rng.normal(0, 1, (H, W, 1)).astype(np.float32))
-    # each sharded interpret case costs MINUTES of XLA CPU compile, so
-    # the default run keeps one case per mechanism (A/B tracks,
-    # census+FH, per-pixel windows, V group, parity group) and
-    # MGM_TPU_FULL_TESTS=1 adds the mesh-size/feature cross products.
-    # (Folding more features into one case — pp+vfit together —
-    # produced a program the XLA CPU compiler aborts on.)
-    cases = [
-        (2, MGMConfig(dmin=-6, dmax=2, ndir=4, mgm=2, refinement="vfit",
-                      median_radius=1, test_lr=True), None),
-        (2, MGMConfig(dmin=-6, dmax=2, ndir=4, mgm=3, distance="census",
-                      prefilter="census", use_trunc_linear=True, p1=2,
-                      p2=100, test_lr=True), None),
-        (2, MGMConfig(dmin=-6, dmax=2, ndir=4, mgm=2, test_lr=True),
-         "pp"),
-        # ndir=8 exercises the V group (passes 5/7: lockstep apron
-        # pipeline with bidirected refreshes) alongside A/B — the
-        # round-3 eligibility crash lived exactly here
-        (2, MGMConfig(dmin=-6, dmax=2, ndir=8, mgm=2, test_lr=True),
-         None),
-        # mgm=4 routes passes 2/3/5/7 into the packed parity spaces:
-        # round-4 run_p_group (lockstep half-row apron pipeline, both
-        # spaces in one launch); ndir=8 covers AB+V+parity together
-        (2, MGMConfig(dmin=-6, dmax=2, ndir=8, mgm=4, test_lr=True),
-         None),
-    ]
-    if os.environ.get("MGM_TPU_FULL_TESTS"):
-        cases += [
-            (4, MGMConfig(dmin=-6, dmax=2, ndir=4, mgm=3, a_p2=0.5,
-                          test_lr=True), None),
-            (4, MGMConfig(dmin=-6, dmax=2, ndir=8, mgm=3, a_p2=0.5,
-                          refinement="vfit", test_lr=True), None),
-            (2, MGMConfig(dmin=-6, dmax=2, ndir=8, mgm=3,
-                          distance="census", prefilter="census",
-                          use_trunc_linear=True, p1=2, p2=100,
-                          test_lr=True), None),
-            (2, MGMConfig(dmin=-6, dmax=2, ndir=8, mgm=2,
-                          test_lr=True), "pp"),
-            (2, MGMConfig(dmin=-6, dmax=2, ndir=8, mgm=4,
-                          test_lr=True), "pp"),
-        ]
-    for n_dev, cfg, pp in cases:
-        kw = {}
-        if pp:
-            dmin_img = (cfg.dmin + 3 * rng.random((H, W))) \
-                .astype(np.float32)
-            kw = dict(dmin_img=dmin_img, dmax_img=dmin_img + 5)
-        ref = compute_disparity(u, v, cfg, **kw)
-        out = compute_disparity(u, v, cfg, mesh=make_mesh(n_dev), **kw)
-        # the eligibility gate must have taken the fused branch
-        from mgm_tpu.parallel.fused_shard import sharded_eligible
-        assert sharded_eligible(cfg.ndir, cfg.mgm, cfg.distance)
-        for k in ref:
-            np.testing.assert_array_equal(ref[k], out[k],
-                                          err_msg=f"{n_dev}dev {k}")
-
-
 def test_pipeline_mesh_ragged_rows(rng):
     """Full compute_disparity pipeline on an H that does NOT divide the
     mesh size: fake bottom rows are appended after the boundary-
@@ -238,14 +166,12 @@ def test_pipeline_mesh_ragged_rows(rng):
 def test_pipeline_mesh_per_pixel(rng):
     """Full compute_disparity pipeline, row-sharded, with per-pixel
     -m/-M windows == the unsharded volume path."""
-    from mgm_tpu.io import read_image
+    from mgm_tpu import synth
     from mgm_tpu.models.presets import get_preset
     from mgm_tpu.stereo import compute_disparity
 
-    u = read_image("/root/reference/data/fountain23-imL.png")[200:232,
-                                                              300:348]
-    v = read_image("/root/reference/data/fountain23-imR.png")[200:232,
-                                                              300:348]
+    u, v, _ = synth.fountain_pair(seed=0)
+    u, v = u[200:232, 300:348], v[200:232, 300:348]
     H, W, _ = u.shape
     dmin_img = (-18 + 5 * rng.random((H, W))).astype(np.float32)
     dmax_img = (dmin_img + 10).astype(np.float32)
@@ -256,25 +182,3 @@ def test_pipeline_mesh_per_pixel(rng):
     for k in a:
         np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
                                       err_msg=k)
-
-
-def test_sharded_eligible_matches_supported_groups():
-    """The eligibility gate must accept EXACTLY what sharded_fused_lsum
-    runs (round 3 shipped a gate that admitted ndir=8 configs the
-    runner then asserted away -> every -O 8 mesh run crashed)."""
-    from mgm_tpu.ops.fused import split_passes
-    from mgm_tpu.parallel.fused_shard import sharded_eligible
-
-    for ndir in (1, 2, 3, 4, 5, 6, 7, 8, 16):
-        for mgm in (1, 2, 3, 4):
-            ok = sharded_eligible(ndir, mgm, "ad")
-            groups, leftover = split_passes(ndir, mgm)
-            supported = not leftover and bool(groups)
-            assert ok == supported, (ndir, mgm)
-            assert not sharded_eligible(ndir, mgm, "ncc")
-    # the concrete shapes of the round-3 bug
-    assert sharded_eligible(8, 2, "ad")
-    assert sharded_eligible(8, 3, "census")
-    assert sharded_eligible(8, 4, "ad")       # parity group (round 4)
-    assert sharded_eligible(2, 4, "ad")
-    assert not sharded_eligible(16, 2, "ad")  # knight passes -> dense

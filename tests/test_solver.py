@@ -1,4 +1,4 @@
-"""Golden tests: the jitted TPU solver vs the pure-numpy reference oracle.
+"""Golden tests: the jitted solver vs the pure-numpy reference oracle.
 
 The oracle (tests/oracle.py) replicates gfacciol/mgm's mgm() semantics
 (mgm_core.cc:408-613) literally, pixel by pixel; these tests pin the
